@@ -5,7 +5,7 @@ sentinel bit patterns intentionally match the reference engine (see
 reference core/rayforce.h:50-108) so that on-disk files, the IPC wire format,
 and printed output are interchangeable between the two engines. The
 representation here is brand new: columns are numpy arrays on the host
-control plane and JAX device arrays on the TPU compute path.
+control plane and JAX device arrays on the device compute path.
 """
 from __future__ import annotations
 

@@ -274,11 +274,11 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs, mesh):
     from jax.sharding import PartitionSpec as P
 
     def sharded(builder, n_out):
-        return dist.shard_map(
+        return jax.shard_map(
             builder, mesh=mesh,
             in_specs=tuple(P(axis) for _ in col_objs),
             out_specs=tuple(P(axis) for _ in range(n_out)),
-            check_rep=False)
+            check_vma=False)
 
     code_builder = make_builder(lane_exprs, lane_maps)
     n_lanes = len(lane_ops)

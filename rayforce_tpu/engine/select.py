@@ -5,8 +5,7 @@ the final first-appearance ordering — traces into ONE jitted function.
 Aggregates are FINALIZED on device (limb recombination, avg division,
 null fixes, output ordering via a dense argsort on first-row ids), so
 the fetched lanes are exactly the output columns: the host pays one
-execute round trip plus one batched transfer of ~output-table bytes
-(the relay moves ~31 MB/s and each extra round trip costs ~30 ms).
+execute round trip plus one batched transfer of ~output-table bytes.
 
 Kernel strategy (see engine/groupby.py for the measured playbook —
 no scatters, no 64-bit bitcasts, ever):
@@ -15,7 +14,7 @@ no scatters, no 64-bit bitcasts, ever):
   perfect/range-multiplier strategy, core/index.c:2308);
 - n_codes <= SMALL_N: one chunked (L, n) broadcast-mask scan computes
   first/last row ids, f64 sums, and min/max directly;
-- larger n: counts + exact integer limb sums via factored one-hot MXU
+- larger n: counts + exact integer limb sums via factored one-hot
   matmuls; extrema/f64 sums/order ride ONE stable sort
   [codes, iota, payloads...] + log-doubling segmented scans;
 - group keys are decoded arithmetically from ordered dense slot ids on
@@ -30,8 +29,6 @@ assignment). Plans are cached by a structural fingerprint of the query
 AST and its column identities.
 """
 from __future__ import annotations
-
-import sys
 
 import numpy as np
 import jax
@@ -279,10 +276,7 @@ def _build_plan(src, outs, where_ast, by_ast):
         null-free — lets the plan drop the null-count matmul task."""
         if not a.meta.get("plain_col"):
             return True
-        try:
-            return dev.column_has_null(a.inner.cols[0].col)
-        except Exception:
-            return True
+        return dev.column_has_null(a.inner.cols[0].col)
 
     need_isumb = {}        # cid -> (lo, hi): exact f64 bcast-lane sums
     for a in aggs:
@@ -293,10 +287,7 @@ def _build_plan(src, outs, where_ast, by_ast):
             if a.inner.rtype in INT_LIKE:
                 rng_ = (None, None)
                 if a.meta["plain_col"]:
-                    try:
-                        rng_ = dev.column_range(a.inner.cols[0].col)
-                    except Exception:
-                        pass
+                    rng_ = dev.column_range(a.inner.cols[0].col)
                 lo_, hi_ = rng_
                 if small and lo_ is not None and hi_ >= lo_ and \
                         max(abs(lo_), abs(hi_)) * n_rows < F64_EXACT:
@@ -322,11 +313,7 @@ def _build_plan(src, outs, where_ast, by_ast):
             (need_min if a.name == "min" else need_max).add(cid)
             if a.meta["plain_col"] and a.inner.rtype in \
                     (T.I64, T.TIMESTAMP, T.SYMBOL):
-                try:
-                    a.meta["vrange"] = dev.column_range(
-                        a.inner.cols[0].col)
-                except Exception:
-                    pass
+                a.meta["vrange"] = dev.column_range(a.inner.cols[0].col)
         elif a.name == "med":
             if may_null(a):
                 need_nullcnt.add(cid)
@@ -351,9 +338,9 @@ def _build_plan(src, outs, where_ast, by_ast):
 
     # SPMD: small dense plans distribute over the global mesh — each
     # shard runs the same bcast+matmul pipeline on its rows; dense
-    # lanes combine with psum / pmin / pmax over ICI (the reference's
+    # lanes combine with psum / pmin / pmax collectives (the reference's
     # per-thread partials + AGGR_COLLECT, core/aggr.c:163-181, lifted
-    # onto chips). Large/wide plans (global sorts) stay single-chip.
+    # onto devices). Large/wide plans (global sorts) stay single-chip.
     m = dev.mesh()
     spmd = m is not None and small and not need_med
     if spmd:
@@ -686,21 +673,15 @@ def _build_plan(src, outs, where_ast, by_ast):
     plan = _Plan()
     if spmd:
         from jax.sharding import PartitionSpec as P
-        from ..parallel.dist import shard_map as _smap
 
-        def traced(*cols):
-            return pipeline(*cols)
-
-        n_in = len(col_objs)
-        smapped = _smap(traced, mesh=m,
-                        in_specs=tuple(P(axis) for _ in range(n_in)),
-                        out_specs=(P(), P(), P()), check_rep=False)
+        smapped = jax.shard_map(
+            pipeline, mesh=m,
+            in_specs=tuple(P(axis) for _ in col_objs),
+            out_specs=(P(), P(), P()), check_vma=False)
         plan.fn = jax.jit(smapped)
         plan.spmd = True
     else:
-        hs = dev.host_sharding()
-        plan.fn = jax.jit(pipeline, out_shardings=hs) \
-            if hs is not None else jax.jit(pipeline)
+        plan.fn = jax.jit(pipeline)
         plan.spmd = False
     plan.col_objs = col_objs
     plan.key_meta = key_meta
@@ -726,20 +707,6 @@ def _host_gather(col_obj: Obj, idx: np.ndarray) -> Obj:
     """first/last: gather column values at group row ids on the host."""
     from ..ops.compose import gather
     return gather(col_obj, idx.astype(np.int64))
-
-
-_warned = [False]
-
-
-def warn_fallback(e):
-    from ..core import log
-    log.debug("device path fallback: %s: %s", type(e).__name__,
-              str(e)[:200])
-    if not _warned[0]:
-        _warned[0] = True
-        print(f"rayforce-tpu: device select path disabled by error "
-              f"({type(e).__name__}: {str(e)[:200]}); using host path",
-              file=sys.stderr)
 
 
 def try_select_device(interp, src: Obj, outs, where_ast, by_ast, lim,
@@ -834,7 +801,8 @@ def try_select_device(interp, src: Obj, outs, where_ast, by_ast, lim,
     t2 = _t.perf_counter()
     lanes = G.unpack(bufs, plan.lanes_meta["layout"])
     last_profile.clear()
-    last_profile.update({"dispatch_ms": (t1 - t0) * 1000,
+    last_profile.update({"engine": "bcast-spmd" if plan.spmd else "bcast",
+                         "dispatch_ms": (t1 - t0) * 1000,
                          "exec+fetch_ms": (t2 - t1) * 1000,
                          "n_codes": plan.n_codes,
                          "spmd": plan.spmd})

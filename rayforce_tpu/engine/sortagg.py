@@ -3,20 +3,9 @@
 Covers SMALL_N < n_codes <= dense_max (the reference's perfect/
 range-multiplier group index over medium key spaces, core/index.c:2308;
 its radix-partitioned grouping, core/index.c:2556, is the same
-sort-then-segment idea). Replaces the round-1 dense matmul+stable-sort
-path, which paid ~18-27 ms per one-hot matmul task at 100k cells plus a
-~35-55 ms multi-payload stable sort. Measured TPU v5e cost model that
-shaped this design (10M rows):
-
-  unstable sort, one i32 key        ~10 ms
-  unstable sort, +1 i32 operand     ~12 ms more   (+f64 ~ +11..20 ms)
-  unstable sort, one i64 key        ~25 ms
-  boundary compaction (i32 sort)    ~10 ms
-  log-doubling segmented scan       ~6-8 ms
-  n-sized gather from 10M           ~2 ms
-  one-hot matmul task               ~18-27 ms     (AVOIDED entirely)
-  device->host fetch                ~28 ms latency + ~27 MB/s (AVOIDED:
-                                    outputs stay device-resident)
+sort-then-segment idea). The design keeps sorted operands narrow (i32
+where stats allow), uses no one-hot matmul and leaves its outputs on
+the device. Its cost on the GPU has not been broken down yet.
 
 Pipeline (one jitted dispatch, one tiny scalar fetch):
 
@@ -32,7 +21,7 @@ Pipeline (one jitted dispatch, one tiny scalar fetch):
 5. Every aggregate is a log-doubling segmented scan (or key-bit
    extract) gathered at segment ends; counts are boundary diffs.
 6. First-appearance order: an auxiliary "head sort" over the first
-   M=2^20 rows (packed code|pos, ~1.4 ms) yields exact first-row ids
+   M=2^20 rows (packed code|pos) yields exact first-row ids
    when every group appears in the head; a `straggler` flag (any group
    missing from the head) triggers ONE re-run on an exact fallback plan
    whose i64 key carries the row position (code|pos|packed). `last`
@@ -66,8 +55,9 @@ from . import groupby as G
 HEAD_M = 1 << 21
 HEAD_FACTOR = 8
 
-# boundary-compaction strategy switch: searchsorted costs ~0.4 us per
-# probe (NCAP probes) vs a flat ~10 ms for the full-width i32 sort
+# boundary-compaction strategy switch: up to this many groups, NCAP
+# searchsorted probes replace the full-width i32 compaction sort (the
+# crossover awaits a measurement on the GPU)
 SEARCH_NCAP = 1 << 14
 
 _BIG = np.int32(1 << 30)
@@ -129,10 +119,7 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs,
     def may_null(a):
         if not a.meta.get("plain_col"):
             return True
-        try:
-            return dev.column_has_null(a.inner.cols[0].col)
-        except Exception:
-            return True
+        return dev.column_has_null(a.inner.cols[0].col)
 
     cinfo: dict = {}   # cid -> dict(rtype, ops=set, agg, plain)
     need_lidx = False
@@ -186,11 +173,7 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs,
         if "null" in ci["ops"] or not ci["plain"] or \
                 ci["rtype"] not in INT_LIKE:
             continue
-        col = ci["agg"].cols[0].col
-        try:
-            lo, hi = dev.column_range(col)
-        except Exception:
-            continue
+        lo, hi = dev.column_range(ci["agg"].cols[0].col)
         if hi < lo:
             continue
         bits = max(int(hi - lo).bit_length(), 1)
@@ -219,13 +202,10 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs,
             kind = "f64"
             if ci["plain"]:
                 # decimal fixed-point columns (cached qscale stat)
-                # ride the sort as EXACT i32 operands — ~half the
-                # sorted bytes of an (emulated) f64 operand; decoded
+                # ride the sort as EXACT i32 operands — half the
+                # sorted bytes of an f64 operand; decoded
                 # back to f64 (nulls -> NaN) right after the sort
-                try:
-                    qs = dev.column_qscale(ci["agg"].cols[0].col)
-                except Exception:
-                    qs = None
+                qs = dev.column_qscale(ci["agg"].cols[0].col)
                 if qs:
                     kind = ("q32", float(qs))
         elif rt in NARROW32:
@@ -233,12 +213,9 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs,
         else:
             kind = "i64"
             if ci["plain"] and "null" not in ci["ops"]:
-                try:
-                    lo, hi = dev.column_range(ci["agg"].cols[0].col)
-                    if -(1 << 31) < lo and hi < (1 << 31):
-                        kind = "i32"
-                except Exception:
-                    pass
+                lo, hi = dev.column_range(ci["agg"].cols[0].col)
+                if -(1 << 31) < lo and hi < (1 << 31):
+                    kind = "i32"
         op_ix[cid] = len(operands)
         operands.append((cid, kind))
 
@@ -312,9 +289,8 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs,
         # ---- boundary compaction ------------------------------------
         if NCAP <= SEARCH_NCAP:
             # few groups: j-th boundary = first position where the
-            # flag prefix-count reaches j+1. cumsum (~0-2 ms) + one
-            # searchsorted (~0.4 us/probe) beats the ~10 ms full-width
-            # i32 sort up to ~16k probes.
+            # flag prefix-count reaches j+1 (cumsum + one searchsorted
+            # instead of the full-width i32 sort)
             cum = jnp.cumsum(flags.astype(jnp.int32))
             bpos = jnp.searchsorted(
                 cum, jnp.arange(1, NCAP + 1, dtype=jnp.int32),
@@ -490,11 +466,7 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, n_codes, aggs,
             qs = None
             if rt == T.F64:
                 if cinfo[cid]["plain"]:
-                    try:
-                        qs = dev.column_qscale(
-                            cinfo[cid]["agg"].cols[0].col)
-                    except Exception:
-                        qs = None
+                    qs = dev.column_qscale(cinfo[cid]["agg"].cols[0].col)
                 if qs:
                     # i32 quantized med key: exact order, nulls last
                     rq = jnp.round(a * jnp.float64(qs))

@@ -10,11 +10,11 @@ design as engine/sortagg.py but with:
 - a trash bit above word 0 routes where-masked rows to the end;
 - first-appearance output ordering via ONE more sort that carries the
   result lanes alongside the first-row-id key (n_groups can be ~n_rows,
-  so NCAP-sized gathers would be 10M-row gathers — ~200 ms on this
-  TPU — while a carried sort is ~10 ms per word);
+  so NCAP-sized gathers would be full-width gathers; whether a gather
+  or a carried sort is cheaper on the GPU has not been measured);
 - outputs stay ON DEVICE (DevPendingSliced); the host fetches one
-  scalar (the group count). A q7-style 10M-group result never crosses
-  the ~27 MB/s relay.
+  scalar (the group count), so a q7-style 10M-group result is not
+  copied to the host.
 """
 from __future__ import annotations
 
@@ -117,10 +117,7 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, aggs):
     def may_null(a):
         if not a.meta.get("plain_col"):
             return True
-        try:
-            return dev.column_has_null(a.inner.cols[0].col)
-        except Exception:
-            return True
+        return dev.column_has_null(a.inner.cols[0].col)
 
     cinfo: dict = {}
     need_lidx = any(a.name == "last" for a in aggs)
@@ -154,10 +151,7 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, aggs):
                 # decimal fixed-point column (qscale stat): exact i32
                 # sort operand, dequantized right after (sortagg has
                 # the same fast path; see engine/device.py)
-                try:
-                    qs = dev.column_qscale(ci["agg"].cols[0].col)
-                except Exception:
-                    qs = None
+                qs = dev.column_qscale(ci["agg"].cols[0].col)
                 if qs:
                     kind = ("q32", float(qs))
         elif rt in NARROW32:
@@ -165,12 +159,9 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, aggs):
         else:
             kind = "i64"
             if ci["plain"] and "null" not in ci["ops"]:
-                try:
-                    lo, hi = dev.column_range(ci["agg"].cols[0].col)
-                    if -(1 << 31) < lo and hi < (1 << 31):
-                        kind = "i32"
-                except Exception:
-                    pass
+                lo, hi = dev.column_range(ci["agg"].cols[0].col)
+                if -(1 << 31) < lo and hi < (1 << 31):
+                    kind = "i32"
         op_ix[cid] = len(operands)
         operands.append((cid, kind))
 
@@ -240,8 +231,7 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, aggs):
         # REVERSED inclusive segmented scans put every segment's TOTAL
         # on its FIRST row — so all per-group quantities live on the
         # (already known) boundary rows with no boundary compaction
-        # and no 10M-row gathers (a full-width gather costs ~25-200 ms
-        # on this TPU; an extra elementwise flip costs ~1 ms)
+        # and no full-width gathers
         segid = jnp.cumsum(flags.astype(jnp.int32) +
                            (~valid).astype(jnp.int32))
         rsegid = segid[::-1]
@@ -369,8 +359,8 @@ def build_plan(src, n_rows, cw, key_cs, key_meta, aggs):
 
         # ---- first-appearance ordering: carry lanes through ONE sort ----
         # narrow carried words where bounds allow: positions fit i32
-        # (n_rows < 2^30), counts fit i32 — each 64-bit operand in a
-        # 10M-row sort costs ~2x an i32 one (TPU_NOTES.md)
+        # (n_rows < 2^30), counts fit i32 — half the sorted bytes of
+        # a 64-bit operand
         fkey = jnp.where(flags, fidx,
                          jnp.int64(0x7FFFFFFF)).astype(jnp.int32)
         carry_names = list(lanes.keys())

@@ -4,8 +4,8 @@ The reference sorts the right table by keys, finds a per-left-row
 window [li, ri] of right rows via per-row binary searches, and reduces
 each range (core/join.c:358-489, core/index.c:3287-3347, core/aggr.c
 AGGR_ITER INDEX_TYPE_WINDOW). Per-row binary search is a big random
-gather (searchsorted with 10M probes costs ~1.8 s here), so the device
-plan replaces every search with ONE event sort:
+gather, so the device plan replaces every search with ONE event sort
+(which of the two is faster on the GPU has not been measured):
 
   entries = right rows (tie 0) ++ lo events (tie +/-1) ++ hi events
   sort by (key code, time, tie)          -- 3-key lax.sort
@@ -157,9 +157,8 @@ def _dst_query(vals, tab, op, li, ri):
     k = _msb((li ^ ri).astype(jnp.int32))
     base = vals[li]
 
-    # same 128-block: mini DST level k. NOTE: flat 1D gathers — a 2D
-    # stack[k, i] gather of emulated f64 materializes as f32[n, 2]
-    # with a (8,128) tile = 64x padding blowup (OOM at 20M rows).
+    # same 128-block: mini DST level k, looked up with flat 1D
+    # gathers over the concatenated levels
     n = vals.shape[0]
     if tab["mini"]:
         mflat = jnp.concatenate(tab["mini"])
@@ -204,16 +203,13 @@ _bound_cache: dict = {}
 
 def _boundaries_fn(nl, nr, n_codes, tp, n_pay, pay_dtypes,
                    pack=None):
-    """NOTE on layouts: dynamic gathers of 64-bit (emulated) values
-    materialize as f32/u32[n, 2] buffers with (8,128) tiles — a 64x
-    padding blowup that OOMs at 10M+ rows. Sorts are layout-safe, so
-    aggregate input columns ride this sort as payloads instead of
+    """Aggregate input columns ride this sort as payloads instead of
     being gathered by the sorted row order afterwards.
 
     `pack` = (tmin, tbits) when (code, biased time) fit one i64 sort
-    key: the unstable packed sorts cost ~2-3x less than the stable
-    multi-key variants at 20M+ rows (TPU_NOTES.md); None keeps the
-    stable multi-key path (e.g. full-range ns timestamps)."""
+    key: unstable single-key sorts replace the stable multi-key ones;
+    None keeps the stable multi-key path (e.g. full-range ns
+    timestamps)."""
     key = (nl, nr, n_codes, tp, n_pay, pay_dtypes, pack)
     if key in _bound_cache:
         return _bound_cache[key]
@@ -260,8 +256,8 @@ def _boundary_core(lcode, rcode, rt, lo, hi, pays, n_codes, tp, pack,
         src, srt, sr = sorted_r[0], sorted_r[1], sorted_r[2]
         spays = sorted_r[3:]
     # per-code counts/starts by searchsorted over the ALREADY-SORTED
-    # right keys: n_codes+1 probes x log2(nr) gathers (~33 ms at 20M
-    # rows / 18k codes) vs a full one-hot matmul scan over all rows.
+    # right keys: n_codes+1 probes x log2(nr) gathers instead of a
+    # one-hot matmul scan over all rows.
     # starts_ext[c] = rows with code < c; the n_codes probe lands on
     # the first trash row (trash sorts last), so cnt excludes trash.
     probes = jnp.arange(n_codes + 1, dtype=jnp.int64)
@@ -323,10 +319,8 @@ def _boundary_core(lcode, rcode, rt, lo, hi, pays, n_codes, tp, pack,
     ri = jnp.where(p_hi_r < g_fi, g_fi, jnp.minimum(p_hi_r, g_ti))
     safe_li = jnp.clip(li, 0, max(nr - 1, 0)).astype(jnp.int32)
     safe_ri = jnp.clip(ri, 0, max(nr - 1, 0)).astype(jnp.int32)
-    # window emptiness from the event prefixes alone (the old
-    # per-row time probes srt[li] / srt[ri] were dynamic gathers
-    # of emulated-i64 values — a 64x-padded layout costing ~2 s
-    # per probe at 10M rows):
+    # window emptiness from the event prefixes alone, with no per-row
+    # time probes srt[li] / srt[ri]:
     # - tp==1 (closed [lo, hi]): p_hi - p_lo = the group's right
     #   rows inside the window (both events sit in the group's
     #   sorted span; tie order places boundary rows correctly);
@@ -438,9 +432,8 @@ def _k_dev(sv, li, ri, ok, rtype):
 
 
 # min/max run the range structure over i32 VALUE RANKS (two extra
-# sorts) and look the winning value up at the very end: gathers of
-# 64-bit emulated values explode 64x in padding (see _boundaries_fn),
-# i32 gathers are layout-clean.
+# sorts) and look the winning value up at the very end, so the sparse
+# table holds 4-byte ranks instead of 8-byte values.
 
 @jax.jit
 def _k_rank_vals_nf(sv):
@@ -448,8 +441,7 @@ def _k_rank_vals_nf(sv):
     shared by the min and the max aggregate over the same column (the
     rank permutation is direction-independent once there are no nulls
     to re-map). The rank sort's key output IS the sorted-value table,
-    so computing them together saves a whole extra sort of the column
-    (and a relay dispatch)."""
+    so computing them together saves a whole extra sort of the column."""
     n = sv.shape[0]
     iota = jnp.arange(n, dtype=jnp.int32)
     vo, order = jax.lax.sort([sv, iota], num_keys=1, is_stable=True)
@@ -461,8 +453,7 @@ def _k_rank_vals_nf(sv):
 def _k_minmax_pair_nf(sv, li, ri, ok, rtype):
     """Window min AND max of a null-free column in one executable:
     the rank sorts and the sorted-value table are computed once and the
-    two sparse tables share the fused program (chained per-aggregate
-    executables each pay a relay scheduling round)."""
+    two sparse tables share the fused program."""
     n = sv.shape[0]
     iota = jnp.arange(n, dtype=jnp.int32)
     _k, order = jax.lax.sort([sv, iota], num_keys=1, is_stable=True)
@@ -482,9 +473,8 @@ def _flat_st_minmax(rank, li, ri, op):
     """Classic sparse table over i32 ranks: K=log2(n) precomputed
     levels (L[k][i] = op over [i, i+2^k)), ONE flat concat, and a
     2-gather query op(L[k][li], L[k][ri-2^k+1]) with k = msb(len).
-    ~8 i32 gathers of the two-level disjoint structure collapse to 2
-    (each full-width gather costs ~90-175 ms at 10M rows); the i32
-    rank payload keeps the table at n*log2(n)*4 bytes."""
+    ~8 i32 gathers of the two-level disjoint structure collapse to 2;
+    the i32 rank payload keeps the table at n*log2(n)*4 bytes."""
     n = rank.shape[0]
     K = max((n - 1).bit_length(), 1)
     fn = jnp.minimum if op == "min" else jnp.maximum
@@ -623,7 +613,7 @@ def _mesh_wjoin_kernel(mesh, n_codes, tp, cap_l, cap_r, cap_b,
     the reference's scatter moves ids, not rows,
     core/index.c:2556-2729). Code and row-id lanes ride as i32. The
     reference's single biggest published win (window join,
-    core/join.c:358-489, index.c:3287-3347) distributed over ICI.
+    core/join.c:358-489, index.c:3287-3347) distributed over the mesh.
 
     aggs_spec: tuple of (op, lane_idx | None, rtype) over the deduped
     right payload lanes. Returns (ovf_l[1], ovf_r[1], ovf_b[1]
@@ -641,11 +631,11 @@ def _mesh_wjoin_kernel(mesh, n_codes, tp, cap_l, cap_r, cap_b,
         return np.float64(np.nan) if np.dtype(dt) == np.float64 \
             else np.int64(0)
 
-    @partial(dist.shard_map, mesh=mesh,
+    @partial(jax.shard_map, mesh=mesh,
              in_specs=tuple(P(axis) for _ in range(5 + n_pay)),
              out_specs=tuple([P(), P(), P()] +
                              [P(axis)] * len(aggs_spec)),
-             check_rep=False)
+             check_vma=False)
     def kernel(lcode, lo, hi, rcode, rts, *rpays):
         nl = lcode.shape[0]
         nr = rcode.shape[0]
@@ -941,25 +931,21 @@ def window_join_device(lkeys, rkeys, lo_np, hi_np, aggs, tp):
     # static (tmin, tbits) packing for the boundary sorts when
     # (code, biased time, tie) fit one i64 key
     pack = None
-    try:
-        rlo, rhi = dev.column_range(time_r)
-        if isinstance(lo_np, jax.Array) or isinstance(hi_np,
-                                                      jax.Array):
-            # bounds stats in ONE device round trip (4 scalars)
-            b4 = jax.device_get(_k_bounds4(lo_d, hi_d))
-            lmin, lmax, hmin, hmax = (int(x) for x in b4)
-        else:
-            lmin, lmax = int(lo_np.min()), int(lo_np.max())
-            hmin, hmax = int(hi_np.min()), int(hi_np.max())
-        tmin = int(min(int(rlo), lmin, hmin))
-        tmax = int(max(int(rhi), lmax, hmax))
-        tbits = max(int(tmax - tmin).bit_length(), 1)
-        cbits = max(int(n_codes).bit_length(), 1)
-        if cbits + tbits + 2 <= 62 and nr < (1 << 36) and \
-                nl < (1 << 25):
-            pack = (tmin, tbits)
-    except Exception:
-        pack = None
+    rlo, rhi = dev.column_range(time_r)
+    if isinstance(lo_np, jax.Array) or isinstance(hi_np, jax.Array):
+        # bounds stats in ONE device round trip (4 scalars)
+        b4 = jax.device_get(_k_bounds4(lo_d, hi_d))
+        lmin, lmax, hmin, hmax = (int(x) for x in b4)
+    else:
+        lmin, lmax = int(lo_np.min()), int(lo_np.max())
+        hmin, hmax = int(hi_np.min()), int(hi_np.max())
+    tmin = int(min(int(rlo), lmin, hmin))
+    tmax = int(max(int(rhi), lmax, hmax))
+    tbits = max(int(tmax - tmin).bit_length(), 1)
+    cbits = max(int(n_codes).bit_length(), 1)
+    if cbits + tbits + 2 <= 62 and nr < (1 << 36) and \
+            nl < (1 << 25):
+        pack = (tmin, tbits)
     f = _boundaries_fn(nl, nr, n_codes, tp, len(pays),
                        tuple(str(p.dtype) for p in pays), pack=pack)
     res = f(lcode, rcode, rt_d, lo_d, hi_d, *pays)
@@ -989,17 +975,11 @@ def window_join_device(lkeys, rkeys, lo_np, hi_np, aggs, tp):
                 T.F64, lambda v=sv, rt_=rtype:
                 _k_dev(v, li, ri, ok, rt_), nl)
         else:
-            nullfree = False
-            try:
-                nullfree = not dev.column_has_null(rcol)
-            except Exception:
-                pass
-            if nullfree:
+            if not dev.column_has_null(rcol):
                 # min and max over the same null-free column share
                 # the rank sorts and the sorted-value lookup table
-                # (fusing BOTH aggregates into one executable was
-                # tried and measured SLOWER at 20M rows: both flat
-                # sparse tables alive at once pressure HBM)
+                # (each aggregate keeps its own executable, so only one
+                # flat sparse table is alive at a time)
                 def mm_thunk(v=sv, op=name, rt_=rtype, key=id(rcol)):
                     if ("rank", key) not in shared_mm:
                         rk_, vo_ = _k_rank_vals_nf(v)

@@ -3,7 +3,7 @@
 
 The reference's epoll/kqueue/IOCP reactor maps to a selectors-based loop on
 the host CPU; queries dispatch into the (single) engine, whose heavy
-kernels run on the TPU. User hooks `.z.po` / `.z.pc` fire on connection
+kernels run on the device. User hooks `.z.po` / `.z.pc` fire on connection
 open/close (ipc.c:195-219); the current handle id is exposed as `.z.w`
 (saved/restored around each request, so nested re-entrant service keeps
 it correct) and is itself a writable ipc handle — server-side code can

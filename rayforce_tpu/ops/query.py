@@ -397,72 +397,64 @@ def _stream_device_select(interp, src, outs, where_ast, by_ast):
 
 
 def _try_device_select(interp, d: Obj):
-    """Attempt the fused TPU path (engine/select.py). Any unsupported
-    shape falls back to the host interpreter with identical semantics."""
-    try:
-        if d.t != T.DICT:
-            return None
-        entries = _dict_entries(d)
-        from_ast = where_ast = by_ast = take_ast = None
-        outs = []
-        for sid, ast in entries:
-            if sid == SYM_FROM:
-                from_ast = ast
-            elif sid == SYM_WHERE:
-                where_ast = ast
-            elif sid == SYM_BY:
-                by_ast = ast
-            elif sid == SYM_TAKE:
-                take_ast = ast
-            else:
-                outs.append((sid, ast))
-        if from_ast is None or not outs:
-            return None
-        src = collect_lazy(interp.eval(from_ast))
-        if src.t == -T.SYMBOL:
-            src = interp.resolve(int(src.v))
-            if src is None:
-                return None
-        if src.t != T.TABLE:
-            return None
-        from ..engine import device as _dev
-        if not _dev.should_use(len(src)):
-            return None
-        _, _cols0 = src.v
-        parted = any(c.t in T.UNPARTED_OF for c in _cols0)
-        if parted:
-            flat = src if STREAM_PARTED is True else _flat_view(src)
-            if flat is src and STREAM_PARTED is not False and \
-                    by_ast is not None:
-                out = _stream_device_select(interp, src, outs,
-                                            where_ast, by_ast)
-                if out is not None:
-                    if take_ast is not None:
-                        tv = collect_lazy(interp.eval(take_ast))
-                        out = _apply_take(out, int(tv.v))
-                    return out
-                return None
-            src = flat
-            if src is flat and any(c.t in T.UNPARTED_OF
-                                   for c in src.v[1]):
-                return None   # too big to raze, not streamable
-        from ..engine.select import try_select_device
-        lim = None
-        if take_ast is not None:
-            tv = collect_lazy(interp.eval(take_ast))
-            lim = int(tv.v)
-        out = try_select_device(interp, src, outs, where_ast, by_ast, lim)
-        if out is not None and lim is not None:
-            out = _apply_take(out, lim)
-        return out
-    except Exception as e:
-        import os
-        from ..engine.select import warn_fallback
-        warn_fallback(e)
-        if os.environ.get("RAYFORCE_DEBUG"):
-            import traceback
-            traceback.print_exc()
+    """Attempt the fused device path (engine/select.py). An unsupported
+    shape returns None and runs on the host interpreter with identical
+    semantics; an error raised by the device path propagates."""
+    if d.t != T.DICT:
         return None
+    entries = _dict_entries(d)
+    from_ast = where_ast = by_ast = take_ast = None
+    outs = []
+    for sid, ast in entries:
+        if sid == SYM_FROM:
+            from_ast = ast
+        elif sid == SYM_WHERE:
+            where_ast = ast
+        elif sid == SYM_BY:
+            by_ast = ast
+        elif sid == SYM_TAKE:
+            take_ast = ast
+        else:
+            outs.append((sid, ast))
+    if from_ast is None or not outs:
+        return None
+    src = collect_lazy(interp.eval(from_ast))
+    if src.t == -T.SYMBOL:
+        src = interp.resolve(int(src.v))
+        if src is None:
+            return None
+    if src.t != T.TABLE:
+        return None
+    from ..engine import device as _dev
+    if not _dev.should_use(len(src)):
+        return None
+    _, _cols0 = src.v
+    parted = any(c.t in T.UNPARTED_OF for c in _cols0)
+    if parted:
+        flat = src if STREAM_PARTED is True else _flat_view(src)
+        if flat is src and STREAM_PARTED is not False and \
+                by_ast is not None:
+            out = _stream_device_select(interp, src, outs,
+                                        where_ast, by_ast)
+            if out is not None:
+                if take_ast is not None:
+                    tv = collect_lazy(interp.eval(take_ast))
+                    out = _apply_take(out, int(tv.v))
+                return out
+            return None
+        src = flat
+        if src is flat and any(c.t in T.UNPARTED_OF
+                               for c in src.v[1]):
+            return None   # too big to raze, not streamable
+    from ..engine.select import try_select_device
+    lim = None
+    if take_ast is not None:
+        tv = collect_lazy(interp.eval(take_ast))
+        lim = int(tv.v)
+    out = try_select_device(interp, src, outs, where_ast, by_ast, lim)
+    if out is not None and lim is not None:
+        out = _apply_take(out, lim)
+    return out
 
 
 def _lazy_table(src: Obj, ids, gindex) -> Obj:

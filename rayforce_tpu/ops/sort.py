@@ -123,26 +123,21 @@ def _try_device_xsort(tbl: Obj, by: Obj, desc: bool):
     from ..engine import device as dv
     if not dv.available() or not dv.should_use(len(tbl)):
         return None
-    try:
-        from ..core.obj import col_by_name
-        from ..engine.sort import xsort_device
-        if by.t == -T.SYMBOL:
-            names = [symbols.name_of(int(by.v))]
-        elif by.t == T.SYMBOL:
-            names = [symbols.name_of(int(s)) for s in to_np(by)]
-        else:
-            return None
-        key_cols = []
-        for nm in names:
-            c = col_by_name(tbl, nm)
-            if c is None:
-                return None
-            key_cols.append(c)
-        return xsort_device(tbl, key_cols, desc)
-    except Exception as e:
-        from ..engine.select import warn_fallback
-        warn_fallback(e)
+    from ..core.obj import col_by_name
+    from ..engine.sort import xsort_device
+    if by.t == -T.SYMBOL:
+        names = [symbols.name_of(int(by.v))]
+    elif by.t == T.SYMBOL:
+        names = [symbols.name_of(int(s)) for s in to_np(by)]
+    else:
         return None
+    key_cols = []
+    for nm in names:
+        c = col_by_name(tbl, nm)
+        if c is None:
+            return None
+        key_cols.append(c)
+    return xsort_device(tbl, key_cols, desc)
 
 
 def ray_xasc(tbl: Obj, by: Obj) -> Obj:

@@ -14,7 +14,7 @@ same decompositions map onto a device mesh:
   all_to_all — the analogue of the radix partition scatter
   (index.c:2556-2729).
 
-Everything here is pure SPMD jax: it runs identically on a real pod slice
+Everything here is pure SPMD jax: it runs identically on several GPUs
 or on a host-platform virtual mesh (tests use 8 virtual CPU devices).
 """
 from __future__ import annotations
@@ -25,28 +25,15 @@ import numpy as np
 
 import jax
 import jax.numpy as jnp
+from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 # i64 keys / f64 lanes everywhere; enabling at import (like engine/
 # device.py) keeps shard_rows outputs 64-bit regardless of import order
 jax.config.update("jax_enable_x64", True)
-try:
-    from jax import shard_map as _shard_map
-    _CHECK_KW = "check_vma"
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map as _shard_map
-    _CHECK_KW = "check_rep"
 
 
-def shard_map(f=None, **kw):
-    if "check_rep" in kw:
-        kw[_CHECK_KW] = kw.pop("check_rep")
-    if f is None:
-        return lambda g: _shard_map(g, **kw)
-    return _shard_map(f, **kw)
-
-
-# -- ICI traffic accounting ---------------------------------------------------
+# -- cross-device traffic accounting ------------------------------------------
 #
 # Every distributed kernel notes its per-invocation cross-chip traffic
 # so the weak-scaling bench (bench.py --mesh N) can report exchanged
@@ -56,8 +43,8 @@ def shard_map(f=None, **kw):
 #   all_gather of per-chip shard S         -> n*(n-1)*S
 #   ppermute of per-chip shard S           -> n*S per step
 # (BASELINE.md's weak-scaling report wants rows/s AND bytes moved; on a
-# virtual CPU mesh wall-clock scaling is meaningless, so the byte model
-# is the honest scaling signal this environment can produce.)
+# virtual CPU mesh wall-clock scaling is meaningless, so there the byte
+# model is the only scaling signal.)
 
 stats = {"exchanged_bytes": 0, "kernel_calls": 0}
 
@@ -103,20 +90,19 @@ def shard_rows(mesh: Mesh, arr, axis="d"):
 # -- distributed dense group-by ----------------------------------------------
 #
 # Per-chip partials use the scatter-free one-hot matmul kernels from
-# engine/groupby.py (scatter costs ~90 ms/10M rows on TPU; the MXU one-
-# hot matmul is ~2-9 ms — see TPU_NOTES.md). The cross-chip combine is
-# psum over ICI — the analogue of the reference's AGGR_COLLECT pairwise
-# merge of per-thread partial vectors (core/aggr.c:163-181).
+# engine/groupby.py. The cross-chip combine is a psum — the analogue
+# of the reference's AGGR_COLLECT pairwise merge of per-thread partial
+# vectors (core/aggr.c:163-181).
 
 def dist_groupby_sum(mesh: Mesh, n_codes: int):
     """Distributed group-by-sum: per-chip dense matmul partials,
-    psum-combined over ICI. codes/values row-sharded; result
+    psum-combined. codes/values row-sharded; result
     replicated."""
     from ..engine import groupby as G
     axis = mesh.axis_names[0]
 
     @partial(shard_map, mesh=mesh, in_specs=(P(axis), P(axis)),
-             out_specs=P(), check_rep=False)
+             out_specs=P(), check_vma=False)
     def kernel(codes, values):
         part = G.matmul_tasks_scan(
             codes, [values.astype(jnp.float32)], n_codes + 1,
@@ -134,7 +120,7 @@ def dist_groupby_count_first(mesh: Mesh, n_codes: int, shard_rows_n: int):
     axis = mesh.axis_names[0]
 
     @partial(shard_map, mesh=mesh, in_specs=(P(axis),),
-             out_specs=(P(), P()), check_rep=False)
+             out_specs=(P(), P()), check_vma=False)
     def kernel(codes):
         me = jax.lax.axis_index(axis)
         n = codes.shape[0]
@@ -164,7 +150,7 @@ def dist_shuffle(mesh: Mesh, capacity: int):
     `overflow` (replicated scalar) counts them so the caller can
     re-run with a larger capacity — nothing drops silently. For
     group-by workloads prefer dist_wide_groupby, whose pre-aggregation
-    makes overflow impossible by construction. This is the ICI
+    makes overflow impossible by construction. This is the mesh
     analogue of the reference's radix scatter with per-thread write
     cursors (index.c:2542-2553)."""
     axis = mesh.axis_names[0]
@@ -172,7 +158,7 @@ def dist_shuffle(mesh: Mesh, capacity: int):
 
     @partial(shard_map, mesh=mesh, in_specs=(P(axis), P(axis)),
              out_specs=(P(axis), P(axis), P(axis), P()),
-             check_rep=False)
+             check_vma=False)
     def kernel(keys, values):
         n = keys.shape[0]
         dest = (keys % n_dev).astype(jnp.int32)
@@ -234,7 +220,7 @@ def dist_select_small(mesh: Mesh, n_codes: int, shard_rows_n: int,
     """The multi-chip version of engine/select.py's small-n pipeline:
     each chip runs the shard-local broadcast-mask scan + one-hot matmul
     tasks over its rows; combines are psum (counts / sums / integer
-    limb tasks), pmin (fidx, mins), pmax (lidx, maxs) over ICI — the
+    limb tasks), pmin (fidx, mins), pmax (lidx, maxs) — the
     reference's per-thread partials + AGGR_COLLECT merge
     (core/aggr.c:163-181) lifted onto the mesh.
 
@@ -249,7 +235,7 @@ def dist_select_small(mesh: Mesh, n_codes: int, shard_rows_n: int,
     specs = tuple(P(axis) for _ in range(nin))
 
     @partial(shard_map, mesh=mesh, in_specs=specs,
-             out_specs=P(), check_rep=False)
+             out_specs=P(), check_vma=False)
     def kernel(codes, *rest):
         me = jax.lax.axis_index(axis)
         n = codes.shape[0]
@@ -300,7 +286,7 @@ def dist_filter_group_sum(mesh: Mesh, n_codes: int):
 
     @partial(shard_map, mesh=mesh,
              in_specs=(P(axis), P(axis), P(axis)),
-             out_specs=(P(), P()), check_rep=False)
+             out_specs=(P(), P()), check_vma=False)
     def kernel(codes, values, mask):
         c = jnp.where(mask, codes, n_codes)
         s, cnt = G.matmul_tasks_scan(
@@ -318,7 +304,7 @@ def dist_filter_group_sum(mesh: Mesh, n_codes: int):
 # -- distributed wide group-by (partial-aggregate exchange) -------------------
 #
 # The multi-chip version of engine/wide.py, following the reference's
-# radix-partition blueprint (core/index.c:2556-2729) lifted onto ICI:
+# radix-partition blueprint (core/index.c:2556-2729) lifted onto the mesh:
 #
 #   stage A (per chip): local sort-agg over the shard's rows ->
 #     compacted partial groups (code, sum, count, fidx). This is the
@@ -397,7 +383,7 @@ def dist_wide_groupby(mesh: Mesh, rows_local: int, out_cap: int,
     @partial(shard_map, mesh=mesh,
              in_specs=tuple(P(axis) for _ in range(1 + n_lanes)),
              out_specs=tuple(P() for _ in range(5 + n_lanes)),
-             check_rep=False)
+             check_vma=False)
     def kernel(codes, *lanes):
         me = jax.lax.axis_index(axis).astype(jnp.int64)
         n = codes.shape[0]
@@ -600,8 +586,8 @@ def dist_med_groupby(mesh: Mesh, rows_local: int, cap: int,
                      out_cap: int, n_lanes: int):
     """Distributed grouped MEDIAN: median is not decomposable, so rows
     shuffle raw to the chip owning hash(code) % n_dev (the reference's
-    radix-partition scatter, core/index.c:2556, on ICI) — every group
-    lands complete on one chip, where a (code, value) sort + selection
+    radix-partition scatter, core/index.c:2556, as an all_to_all) —
+    every group lands complete on one chip, where a (code, value) sort + selection
     computes it exactly (core/aggr.c med over sorted per-group rows).
 
     SKEW HANDLING: any code that is locally heavy on some chip (local
@@ -632,7 +618,7 @@ def dist_med_groupby(mesh: Mesh, rows_local: int, cap: int,
     @partial(shard_map, mesh=mesh,
              in_specs=tuple(P(axis) for _ in range(1 + n_lanes)),
              out_specs=tuple(P() for _ in range(5 + n_lanes)),
-             check_rep=False)
+             check_vma=False)
     def kernel(codes, *lanes):
         me = jax.lax.axis_index(axis).astype(jnp.int64)
         n = codes.shape[0]
@@ -883,7 +869,7 @@ def _lex_ge(keys, sps, j, rid, sp_rid):
 
 def dist_sort(mesh: Mesh, n_rows: int, key_dtypes, cap: int,
               n_samples: int = 64, cap3: int | None = None):
-    """Distributed multi-key table sort — a SAMPLE SORT over ICI (the
+    """Distributed multi-key table sort — a SAMPLE SORT over the mesh (the
     mesh analogue of the reference's parallel radix/merge order-by,
     core/sort.c + core/order.c:246 xasc):
 
@@ -934,7 +920,7 @@ def dist_sort(mesh: Mesh, n_rows: int, key_dtypes, cap: int,
 
     @partial(shard_map, mesh=mesh,
              in_specs=tuple(P(axis) for _ in range(nk)),
-             out_specs=(P(), P()), check_rep=False)
+             out_specs=(P(), P()), check_vma=False)
     def kernel(*keys):
         me = jax.lax.axis_index(axis).astype(jnp.int64)
         n = keys[0].shape[0]
@@ -1107,7 +1093,7 @@ def dist_left_probe(mesh: Mesh):
     axis = mesh.axis_names[0]
 
     @partial(shard_map, mesh=mesh, in_specs=(P(axis), P()),
-             out_specs=(P(axis), P(axis)), check_rep=False)
+             out_specs=(P(axis), P(axis)), check_vma=False)
     def kernel(lkeys, rkeys):
         nr = rkeys.shape[0]
         # first-match semantics: sort right by (key, pos), probe left
@@ -1162,7 +1148,7 @@ def dist_eq_probe(mesh: Mesh, n_total_l: int, cap_l: int,
 
     @partial(shard_map, mesh=mesh, in_specs=(P(axis), P(axis)),
              out_specs=(P(), P(), P(), P(axis), P(axis)),
-             check_rep=False)
+             check_vma=False)
     def kernel(lkey, rkey):
         nl = lkey.shape[0]
         nr = rkey.shape[0]
@@ -1345,8 +1331,8 @@ def dist_asof_probe(mesh: Mesh):
     memory stays O(shard) and the per-chip work is n_dev binary-search
     sweeps, vs the full-table-sized padded exchange sort the previous
     key-mod-n_dev design paid even without skew
-    (/root/reference/core/join.c asof builds one HT per key; the ring
-    replaces its probe with ordered binary search over ICI).
+    (the reference's core/join.c asof builds one HT per key; the ring
+    replaces its probe with ordered binary search).
 
     fn(lkey, lts, rkey, rts, rval) all row-sharded; returns
     (value, has) row-sharded in the left side's original order.
@@ -1361,7 +1347,7 @@ def dist_asof_probe(mesh: Mesh):
 
     @partial(shard_map, mesh=mesh,
              in_specs=(P(axis), P(axis), P(axis), P(axis), P(axis)),
-             out_specs=(P(axis), P(axis)), check_rep=False)
+             out_specs=(P(axis), P(axis)), check_vma=False)
     def kernel(lkey, lts, rkey, rts, rval):
         nl = lkey.shape[0]
         nr = rkey.shape[0]

@@ -1,7 +1,7 @@
 """Device-engine parity: the full device query paths (select, joins,
 window joins, sorts) must produce byte-identical formatted output to
 the host kernels. Runs on the CPU backend with the device engine
-force-enabled — the same XLA programs the TPU executes.
+force-enabled — the same XLA programs the GPU executes.
 """
 import os
 

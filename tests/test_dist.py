@@ -1,7 +1,7 @@
 """Distributed (multi-chip) kernels on a virtual 8-device CPU mesh.
 
 The reference has no distributed tests (SURVEY §4); this is the
-single-process multi-device simulation story the TPU build adds:
+single-process multi-device simulation story the device build adds:
 shard_map SPMD kernels validated against numpy ground truth.
 """
 import os
@@ -132,7 +132,7 @@ def test_dist_shuffle_routing(mesh8):
 
 def test_spmd_select_parity(mesh8):
     """End-to-end mesh-mode select (RAYFORCE_MESH): the interpreter's
-    device path runs the fused pipeline under shard_map with ICI
+    device path runs the fused pipeline under shard_map with collective
     combines, matching the host kernels exactly."""
     import numpy as np
     from rayforce_tpu import Runtime

@@ -222,7 +222,7 @@ def test_pmap_process_pool_speedup(monkeypatch):
     noise, not code. pmap CORRECTNESS (process pool engages, results
     match map, child errors propagate) is covered unconditionally by
     test_pmap_process_pool above; only the speedup claim needs real
-    parallel hardware (the TPU host VM here exposes 1 vCPU)."""
+    parallel hardware (a host with 1 vCPU cannot show a speedup)."""
     import os as _os
     import time
     if (_os.cpu_count() or 1) < 4:
